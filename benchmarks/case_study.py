@@ -10,7 +10,7 @@ adaptive trot<->crawl switch — measurably reduces slipping and falls.
 Here that experiment runs as ONE batched device sweep per (case, config):
 B lanes of the full closed loop (APF -> MPC -> WBC -> sim) with jittered
 spawns/targets, vmapped on-chip (runtime/sweep.py).  Where the reference
-gathered a handful of Gazebo runs, the TPU gathers hundreds per minute.
+gathered a handful of Gazebo runs, one device gathers hundreds at once.
 
 Configs:
   naive     — slippage machinery OFF (crawl_threshold=-1: fake-crawl can
@@ -37,7 +37,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def build_config(name: str):
-    from apf_quadruped_tpu.config import (ApfConfig, EngineConfig,
+    from apf_quadruped.config import (ApfConfig, EngineConfig,
                                           FootholdConfig, GaitConfig)
 
     if name == "naive":
@@ -57,17 +57,17 @@ def build_config(name: str):
         # fake-crawl brake only fires on genuinely bad ground
         # (config.apf_fast — goal_study.py measured the reference gains
         # never reaching a 1.5 m goal in 120 s)
-        from apf_quadruped_tpu.config import apf_fast
+        from apf_quadruped.config import apf_fast
         return EngineConfig(apf=apf_fast())
     if name == "nofh_fast":
         # ablation of fh_fast: identical gains/threshold, foothold
         # selection OFF — isolates the foothold optimizer's contribution
-        from apf_quadruped_tpu.config import apf_fast
+        from apf_quadruped.config import apf_fast
         return EngineConfig(apf=apf_fast(),
                             foothold=FootholdConfig(enabled=False))
     if name == "adaptive":
         # horizon 40 covers the shared 1 s trot/crawl cycle (loop.py)
-        from apf_quadruped_tpu.config import MpcConfig
+        from apf_quadruped.config import MpcConfig
         return EngineConfig(apf=ApfConfig(rep_field_in_step=True),
                             gait=GaitConfig(mode="adaptive"),
                             mpc=MpcConfig(horizon=40))
@@ -77,8 +77,8 @@ def build_config(name: str):
 def build_scenarios(cfg, case: int, B: int, seed: int, dtype):
     import jax.numpy as jnp
 
-    from apf_quadruped_tpu.runtime.sweep import Scenario
-    from apf_quadruped_tpu.sim import disturbance, terrain
+    from apf_quadruped.runtime.sweep import Scenario
+    from apf_quadruped.sim import disturbance, terrain
 
     rng = np.random.default_rng(seed + case)
     terr = terrain.case_world(cfg.sim, case, dtype=dtype)
@@ -114,16 +114,12 @@ def main():
 
     import jax
 
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from apf_quadruped.runtime import cache
+    cache.enable()
 
     import jax.numpy as jnp
 
-    from apf_quadruped_tpu.runtime import sweep
+    from apf_quadruped.runtime import sweep
 
     dtype = jnp.float32
     chunk = 2          # cycles per compiled step (small program, reused)

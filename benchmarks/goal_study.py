@@ -39,15 +39,12 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from apf_quadruped.runtime import cache
+    cache.enable()
 
     import jax.numpy as jnp
 
-    from apf_quadruped_tpu.runtime import sweep
+    from apf_quadruped.runtime import sweep
 
     dtype = jnp.float32
     chunk = 2

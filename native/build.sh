@@ -2,5 +2,5 @@
 # Build the native scenario generator into the package directory.
 set -e
 cd "$(dirname "$0")"
-g++ -O2 -shared -fPIC -std=c++17 -o ../apf_quadruped_tpu/runtime/libscenariogen.so scenario_gen.cpp
-echo "built apf_quadruped_tpu/runtime/libscenariogen.so"
+g++ -O2 -shared -fPIC -std=c++17 -o ../apf_quadruped/runtime/libscenariogen.so scenario_gen.cpp
+echo "built apf_quadruped/runtime/libscenariogen.so"

@@ -5,11 +5,11 @@
 // Rasterizes N random worlds of circle/box friction patches into mu grids
 // and samples randomized push schedules, writing straight into caller-
 // provided buffers (zero-copy into numpy via ctypes).  Python fallback:
-// apf_quadruped_tpu/sim/terrain.py::random_patches.
+// apf_quadruped/sim/terrain.py::random_patches.
 //
 // Build: cc -O2 -shared -fPIC -o libscenariogen.so scenario_gen.cpp
 // (driven by native/build.sh / the ctypes loader in
-//  apf_quadruped_tpu/runtime/native.py)
+//  apf_quadruped/runtime/native.py)
 
 #include <cstdint>
 #include <cmath>

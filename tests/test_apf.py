@@ -7,8 +7,8 @@ Golden values derived from the reference formulas (main.cpp:1171-1422,
 import jax.numpy as jnp
 import numpy as np
 
-from apf_quadruped_tpu import apf
-from apf_quadruped_tpu.config import ApfConfig
+from apf_quadruped import apf
+from apf_quadruped.config import ApfConfig
 
 CFG = ApfConfig()
 
@@ -143,8 +143,8 @@ def test_range_of_motion_clamp():
     nominal_stance +- max_dev around the CoM goal (towr
     range_of_motion_constraint.cc:60-84, max_dev dogbot_model.h:80) —
     an adversarial 5 m target must not command unreachable footholds."""
-    from apf_quadruped_tpu.config import RobotConfig
-    from apf_quadruped_tpu.models.dogbot import LEG_SIGNS
+    from apf_quadruped.config import RobotConfig
+    from apf_quadruped.models.dogbot import LEG_SIGNS
 
     robot = RobotConfig()
     st = apf.init_state()._replace(rob_foot=jnp.full((4,), 0.5))

@@ -7,8 +7,8 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from apf_quadruped_tpu import apf
-from apf_quadruped_tpu.config import ApfConfig
+from apf_quadruped import apf
+from apf_quadruped.config import ApfConfig
 
 CFG = ApfConfig(min_exit=True)
 

@@ -6,11 +6,11 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from apf_quadruped_tpu import gait
-from apf_quadruped_tpu.config import (EngineConfig, GaitConfig, MpcConfig,
+from apf_quadruped import gait
+from apf_quadruped.config import (EngineConfig, GaitConfig, MpcConfig,
                                       SolverConfig, WbcConfig)
-from apf_quadruped_tpu.runtime import loop
-from apf_quadruped_tpu.sim import disturbance, terrain
+from apf_quadruped.runtime import loop
+from apf_quadruped.sim import disturbance, terrain
 
 # crawl cycle is 1 s -> MPC knots at 0.05 s to cover it
 pytestmark = pytest.mark.slow  # f64 closed-loop scans (see pytest.ini tiering)

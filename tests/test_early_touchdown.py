@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu.config import EngineConfig, GaitConfig, SimConfig
-from apf_quadruped_tpu.runtime import loop
-from apf_quadruped_tpu.sim import disturbance, terrain
+from apf_quadruped.config import EngineConfig, GaitConfig, SimConfig
+from apf_quadruped.runtime import loop
+from apf_quadruped.sim import disturbance, terrain
 
 pytestmark = pytest.mark.slow  # f64 closed-loop scans (see pytest.ini tiering)
 

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from apf_quadruped_tpu import apf, foothold
-from apf_quadruped_tpu.config import EngineConfig, FootholdConfig
-from apf_quadruped_tpu.models.dogbot import LEG_SIGNS
-from apf_quadruped_tpu.sim import terrain
+from apf_quadruped import apf, foothold
+from apf_quadruped.config import EngineConfig, FootholdConfig
+from apf_quadruped.models.dogbot import LEG_SIGNS
+from apf_quadruped.sim import terrain
 
 CFG = EngineConfig()
 ROBOT = CFG.robot

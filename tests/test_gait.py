@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from apf_quadruped_tpu import gait
+from apf_quadruped import gait
 
 
 def test_table_shapes():

@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from apf_quadruped_tpu.config import RobotConfig
-from apf_quadruped_tpu.models import dogbot, kinematics as kin
+from apf_quadruped.config import RobotConfig
+from apf_quadruped.models import dogbot, kinematics as kin
 
 
 CFG = RobotConfig()

@@ -12,9 +12,9 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from apf_quadruped_tpu.config import EngineConfig
-from apf_quadruped_tpu.runtime import loop
-from apf_quadruped_tpu.sim import disturbance, physics, terrain
+from apf_quadruped.config import EngineConfig
+from apf_quadruped.runtime import loop
+from apf_quadruped.sim import disturbance, physics, terrain
 
 pytestmark = pytest.mark.slow  # f64 closed-loop scans (see pytest.ini tiering)
 

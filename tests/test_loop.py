@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu.config import EngineConfig, SolverConfig, WbcConfig
-from apf_quadruped_tpu.runtime import loop
-from apf_quadruped_tpu.sim import disturbance, terrain
+from apf_quadruped.config import EngineConfig, SolverConfig, WbcConfig
+from apf_quadruped.runtime import loop
+from apf_quadruped.sim import disturbance, terrain
 
 # THE production config: SolverConfig() defaults (iters=15,
 # reltol=abstol=1e-2 — the reference's own runtime tolerance,
@@ -86,7 +86,7 @@ def test_adaptive_gait_switching():
     a state seeded with a slippery history (low margin integral) starts in
     the crawl combo, and once the index rebuilds on good ground the loop
     switches to the full-cycle trot, staying upright throughout."""
-    from apf_quadruped_tpu.config import GaitConfig, MpcConfig
+    from apf_quadruped.config import GaitConfig, MpcConfig
 
     cfg = CFG.replace(gait=GaitConfig(mode="adaptive"),
                       mpc=MpcConfig(horizon=40))

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu.runtime import native
+from apf_quadruped.runtime import native
 
 
 @pytest.fixture(scope="module")
@@ -49,10 +49,30 @@ def test_targets(lib_available):
 
 
 def test_sweep_uses_native(lib_available):
-    from apf_quadruped_tpu.config import EngineConfig, SimConfig
-    from apf_quadruped_tpu.runtime import sweep
+    from apf_quadruped.config import EngineConfig, SimConfig
+    from apf_quadruped.runtime import sweep
 
     cfg = EngineConfig(sim=SimConfig(terrain_res=32))
     scn = sweep.random_scenarios(cfg, n=4, seed=0, use_native=True)
     assert scn.mu_map.shape == (4, 32, 32)
     assert np.isfinite(np.asarray(scn.mu_map)).all()
+
+
+def test_stale_library_is_rebuilt(tmp_path, monkeypatch):
+    """A library older than its source (left by another checkout) is
+    rebuilt before it is loaded."""
+    import os
+    import shutil
+
+    from apf_quadruped.runtime import native
+
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ toolchain")
+    so = tmp_path / "libscenariogen.so"
+    so.write_bytes(b"not a library")
+    os.utime(so, (0, 0))                         # older than the source
+    monkeypatch.setattr(native, "_SO_PATH", str(so))
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_LIB_TRIED", False)
+    assert native._load() is not None
+    assert so.stat().st_mtime > os.path.getmtime(native._SRC)

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu.config import EngineConfig
-from apf_quadruped_tpu.runtime import observer
-from apf_quadruped_tpu.sim import physics, terrain
+from apf_quadruped.config import EngineConfig
+from apf_quadruped.runtime import observer
+from apf_quadruped.sim import physics, terrain
 from tests.test_sim import gravity_torques
 
 CFG = EngineConfig()

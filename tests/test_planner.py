@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu import gait, planner
-from apf_quadruped_tpu.config import EngineConfig, MpcConfig, SolverConfig
-from apf_quadruped_tpu.models import srb
-from apf_quadruped_tpu.models.dogbot import nominal_stance
+from apf_quadruped import gait, planner
+from apf_quadruped.config import EngineConfig, MpcConfig, SolverConfig
+from apf_quadruped.models import srb
+from apf_quadruped.models.dogbot import nominal_stance
 
 CFG = EngineConfig(
     mpc=MpcConfig(horizon=10, dt=0.05),
@@ -369,55 +369,57 @@ def test_base_acc_riccati_matches_condensed():
     np.testing.assert_allclose(fr.sum(1), fc.sum(1), atol=5.0)
 
 
-@pytest.mark.slow
-def test_base_acc_resident_matches_scan():
-    """base_acc on the PRODUCTION resident kernel (accel rows derived
-    in-kernel from the B stream) must agree with the scan backend."""
-    mk = dict(horizon=10, dt=0.05, base_acc=True, acc_lin_max=1.5,
-              acc_ang_max=5.0)
-    sol_cfg = SolverConfig(iters=40, reltol=1e-5, abstol=1e-3)
-    cfg_s = EngineConfig(mpc=MpcConfig(**mk, backend="riccati"),
-                         solver=sol_cfg)
-    cfg_p = EngineConfig(mpc=MpcConfig(**mk, backend="riccati_resident"),
-                         solver=sol_cfg)
-    com0 = jnp.array([0.0, 0.0, 0.4])
-    com_des = jnp.array([0.0, 0.05, 0.6])
-    x0 = srb.pack_state(jnp.zeros(3), com0, jnp.zeros(3), jnp.zeros(3))
-    out_s = planner.plan(cfg_s, x0, _acc_refs(cfg_s, com0, com_des))
-    out_p = planner.plan(cfg_p, x0, _acc_refs(cfg_p, com0, com_des))
-    assert bool(out_s.sol.converged) and bool(out_p.sol.converged)
-    # both converged at the same tolerance; f32 reduction-order
-    # differences between the backends shift the near-degenerate
-    # boundary point by a few 1e-3, and at bound-riding knots the force
-    # SPLIT is degenerate (as in the base_box cross-check) — compare
-    # trajectories plus the per-knot NET force
-    np.testing.assert_allclose(np.asarray(out_p.states),
-                               np.asarray(out_s.states), atol=5e-3)
-    np.testing.assert_allclose(np.asarray(out_p.forces).sum(1),
-                               np.asarray(out_s.forces).sum(1), atol=5.0)
-    # solutions carry the 12 extra rows in both backends
-    assert out_s.sol.z.shape == out_p.sol.z.shape
+@pytest.mark.parametrize("platform,mpc,expected", [
+    ("cpu", {}, "riccati"),
+    ("gpu", {}, "riccati"),
+    ("gpu", {"base_box": True}, "riccati"),
+    ("gpu", {"base_acc": True}, "riccati"),
+    ("metal", {"backend": "condensed"}, "condensed"),
+    ("cpu", {"backend": "condensed"}, "condensed"),
+])
+def test_effective_backend(monkeypatch, platform, mpc, expected):
+    """"auto" resolves from the platform: the scan Riccati IPM on the GPU
+    and the CPU; a named backend is taken as named on any platform."""
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    cfg = EngineConfig(mpc=MpcConfig(**mpc))
+    assert planner.effective_backend(cfg) == expected
 
 
-@pytest.mark.slow
-def test_base_box_resident_through_planner():
-    """The planner's resident-kernel route with base_box must build the
-    static Cx rows from config data (a traced-array static here once
-    crashed under jit) and reproduce the scan backend."""
-    mk = dict(horizon=10, dt=0.05, base_box=True)
-    sol_cfg = SolverConfig(iters=30, reltol=1e-2, abstol=1e-2)
-    cfg_s = EngineConfig(mpc=MpcConfig(**mk, backend="riccati"),
-                         solver=sol_cfg)
-    cfg_p = EngineConfig(mpc=MpcConfig(**mk, backend="riccati_resident"),
-                         solver=sol_cfg)
+def test_effective_backend_unknown_platform_raises(monkeypatch):
+    """No solver is assumed for a platform nobody measured."""
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "metal")
+    with pytest.raises(ValueError, match="no solver"):
+        planner.effective_backend(EngineConfig())
+
+
+def test_unknown_backend_raises():
+    """A backend name that no longer exists (the removed kernel backends)
+    fails loudly instead of silently planning with another solver."""
+    cfg = CFG.replace(mpc=MpcConfig(horizon=10, dt=0.05,
+                                    backend="riccati_resident"))
     com0 = jnp.array([0.0, 0.0, 0.4])
-    com_des = jnp.array([0.0, 0.0, 0.65])
+    refs = _stand_refs(cfg, com0)
     x0 = srb.pack_state(jnp.zeros(3), com0, jnp.zeros(3), jnp.zeros(3))
-    out_s = planner.plan(cfg_s, x0, _acc_refs(cfg_s, com0, com_des))
-    out_p = planner.plan(cfg_p, x0, _acc_refs(cfg_p, com0, com_des))
-    assert bool(out_s.sol.converged) and bool(out_p.sol.converged)
-    np.testing.assert_allclose(np.asarray(out_p.states),
-                               np.asarray(out_s.states), atol=5e-3)
-    # the z box binds on the resident path too
-    z = np.asarray(out_p.states)[:, 5]
-    assert z.max() <= 0.4 + 0.1 + 2e-3
+    with pytest.raises(ValueError, match="riccati_resident"):
+        planner.plan(cfg, x0, refs)
+
+
+@pytest.mark.gpu
+def test_planner_on_gpu_matches_host():
+    """On the card: the production planner at B=256 converges and agrees
+    with the host CPU (chip_smoke.py phase (c) at a small batch)."""
+    import jax
+
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs the GPU; chip_smoke.py runs this on the card")
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    import chip_smoke
+
+    chip_smoke.phase_planner(B=256)

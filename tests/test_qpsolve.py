@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu.config import SolverConfig
-from apf_quadruped_tpu.ops.qpsolve import QPData, make_qp, solve_qp
+from apf_quadruped.config import SolverConfig
+from apf_quadruped.ops.qpsolve import QPData, make_qp, solve_qp
 
 # Tight tolerances for golden math checks (the reference's *runtime* setting
 # is reltol = abstol = 1e-2; the f32 test below uses that).
@@ -108,7 +108,7 @@ def test_mask_neutrality(rng):
 
 
 def test_float32_convergence(rng):
-    """The TPU path is f32: the solver must hit the reference's runtime
+    """The accelerator path is f32: the solver must hit the reference's runtime
     tolerance (1e-2) in f32 on WBC-sized problems."""
     P, q, G, h, A, b = random_qp(rng, n=30, m=70, p=18, batch=(32,))
     qp = make_qp(*(jnp.asarray(v, jnp.float32) for v in (P, q, G, h)),
@@ -154,7 +154,7 @@ def test_refine_steps_improves_f32_residual(rng):
     soft-constraint block like the WBC swing rows)."""
     import jax.numpy as jnp
 
-    from apf_quadruped_tpu.config import SolverConfig
+    from apf_quadruped.config import SolverConfig
 
     n, m = 12, 8
     W = rng.normal(size=(n, n))
@@ -171,3 +171,63 @@ def test_refine_steps_improves_f32_residual(rng):
     r0 = float(solve_qp(qp, SolverConfig(refine_steps=0, **base)).res_norm)
     r2 = float(solve_qp(qp, SolverConfig(refine_steps=2, **base)).res_norm)
     assert r2 < r0 * 0.5, f"refinement did not help: {r0} -> {r2}"
+
+
+def _spd(rng, B, n):
+    M = rng.normal(size=(B, n, n))
+    return np.einsum("bij,bkj->bik", M, M) + n * np.eye(n)
+
+
+@pytest.mark.parametrize("n,k", [(18, 0), (30, 0), (18, 3), (30, 4)])
+def test_spd_solve_matches_numpy(rng, n, k):
+    """spd_factor + spd_solve at the physics (n=18) and WBC (n=30) sizes,
+    vector (k=0) and matrix right-hand sides, against numpy."""
+    from apf_quadruped.ops.qpsolve import spd_factor, spd_solve
+
+    H = _spd(rng, 5, n)
+    rhs = rng.normal(size=(5, n) if k == 0 else (5, n, k))
+    L = spd_factor(jnp.asarray(H))
+    np.testing.assert_allclose(np.asarray(L), np.linalg.cholesky(H),
+                               atol=1e-10)
+    X = spd_solve(L, jnp.asarray(rhs))
+    ref = np.linalg.solve(H, rhs[..., None] if k == 0 else rhs)
+    np.testing.assert_allclose(np.asarray(X),
+                               ref[..., 0] if k == 0 else ref, atol=1e-10)
+
+
+@pytest.mark.parametrize("n", [18, 30])
+def test_spd_solve_vmapped_matches_explicit_batch(rng, n):
+    """jax.vmap of a one-matrix factor+solve (how the sweep batches the
+    physics and the WBC) agrees with the explicitly batched call."""
+    from apf_quadruped.ops.qpsolve import spd_factor, spd_solve
+
+    H = jnp.asarray(_spd(rng, 6, n), jnp.float32)
+    r = jnp.asarray(rng.normal(size=(6, n)), jnp.float32)
+    explicit = spd_solve(spd_factor(H), r)
+    vmapped = jax.vmap(lambda h1, r1: spd_solve(spd_factor(h1), r1))(H, r)
+    np.testing.assert_allclose(np.asarray(vmapped), np.asarray(explicit),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_solve_qp_vmapped_matches_explicit_batch_with_equalities(rng):
+    """jax.vmap(solve_qp) agrees with the explicitly batched call on
+    problems with equality rows (the WBC shape: the Schur complement's
+    p x p factor is batched too)."""
+    B, n, p, m = 6, 8, 3, 10
+    A_ = rng.normal(size=(B, n, n))
+    P = jnp.asarray(A_ @ A_.transpose(0, 2, 1) + n * np.eye(n), jnp.float32)
+    q = jnp.asarray(rng.normal(size=(B, n)), jnp.float32)
+    Aeq = jnp.asarray(rng.normal(size=(B, p, n)), jnp.float32)
+    beq = jnp.asarray(rng.normal(size=(B, p)) * 0.1, jnp.float32)
+    G = jnp.asarray(rng.normal(size=(B, m, n)), jnp.float32)
+    h = jnp.asarray(np.abs(rng.normal(size=(B, m))) + 1.0, jnp.float32)
+    qp = QPData(P=P, q=q, A=Aeq, b=beq, G=G, h=h,
+                eq_mask=jnp.ones((B, p), jnp.float32),
+                ineq_mask=jnp.ones((B, m), jnp.float32))
+    cfg = SolverConfig(iters=25, reltol=1e-6, abstol=1e-6)
+    explicit = solve_qp(qp, cfg)
+    vmapped = jax.vmap(lambda one: solve_qp(one, cfg))(qp)
+    assert np.asarray(explicit.converged).all()
+    assert np.asarray(vmapped.converged).all()
+    np.testing.assert_allclose(np.asarray(vmapped.x),
+                               np.asarray(explicit.x), atol=5e-5)

@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu.config import RobotConfig
-from apf_quadruped_tpu.models import rbd
-from apf_quadruped_tpu.models.dogbot import nominal_stance
-from apf_quadruped_tpu.models.kinematics import stance_ik
-from apf_quadruped_tpu.ops.rotations import rpy_to_rot, skew
+from apf_quadruped.config import RobotConfig
+from apf_quadruped.models import rbd
+from apf_quadruped.models.dogbot import nominal_stance
+from apf_quadruped.models.kinematics import stance_ik
+from apf_quadruped.ops.rotations import rpy_to_rot, skew
 
 CFG = RobotConfig()
 RNG = np.random.default_rng(7)

@@ -19,12 +19,12 @@ two QPs live in different coordinates with different decision variables.
 import jax.numpy as jnp
 import numpy as np
 
-from apf_quadruped_tpu import wbc
-from apf_quadruped_tpu.config import EngineConfig, SolverConfig, WbcConfig
-from apf_quadruped_tpu.models import rbd
-from apf_quadruped_tpu.models.dogbot import joint_limits, nominal_stance
-from apf_quadruped_tpu.models.kinematics import stance_ik
-from apf_quadruped_tpu.ops.qpsolve import QPData, solve_qp
+from apf_quadruped import wbc
+from apf_quadruped.config import EngineConfig, SolverConfig, WbcConfig
+from apf_quadruped.models import rbd
+from apf_quadruped.models.dogbot import joint_limits, nominal_stance
+from apf_quadruped.models.kinematics import stance_ik
+from apf_quadruped.ops.qpsolve import QPData, solve_qp
 
 CFG = EngineConfig(
     solver=SolverConfig(iters=30, reltol=1e-8, abstol=1e-6,

@@ -28,12 +28,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu import wbc
-from apf_quadruped_tpu.config import EngineConfig, SolverConfig, WbcConfig
-from apf_quadruped_tpu.models import rbd
-from apf_quadruped_tpu.models.dogbot import joint_limits, nominal_stance
-from apf_quadruped_tpu.models.kinematics import stance_ik
-from apf_quadruped_tpu.ops.qpsolve import QPData, solve_qp
+from apf_quadruped import wbc
+from apf_quadruped.config import EngineConfig, SolverConfig, WbcConfig
+from apf_quadruped.models import rbd
+from apf_quadruped.models.dogbot import joint_limits, nominal_stance
+from apf_quadruped.models.kinematics import stance_ik
+from apf_quadruped.ops.qpsolve import QPData, solve_qp
 
 # abstol 1e-6: the 1e8/1e4 slack weights inflate the duality-gap scale,
 # which plateaus ~1e-7 while the residuals reach 1e-14
@@ -488,8 +488,8 @@ def test_full_gait_cycle_sequence_parity():
         sides), and the reference's approximate Tdot (an exact-jvp Tdot
         rebuild moves the answer < 1e-4 N).
     """
-    from apf_quadruped_tpu import swing as swing_mod
-    from apf_quadruped_tpu.sim import physics, terrain
+    from apf_quadruped import swing as swing_mod
+    from apf_quadruped.sim import physics, terrain
 
     cfg = EngineConfig(
         solver=SOLVER,
@@ -613,5 +613,5 @@ def test_full_gait_cycle_sequence_parity():
 
 
 def _rpy_of(R):
-    from apf_quadruped_tpu.ops.rotations import rot_to_rpy
+    from apf_quadruped.ops.rotations import rot_to_rpy
     return rot_to_rpy(R)

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu.config import SolverConfig
-from apf_quadruped_tpu.ops.qpsolve import QPData, solve_qp
-from apf_quadruped_tpu.ops.riccati import StageQP, solve_stage_qp
+from apf_quadruped.config import SolverConfig
+from apf_quadruped.ops.qpsolve import QPData, solve_qp
+from apf_quadruped.ops.riccati import StageQP, solve_stage_qp
 
 CFG = SolverConfig(iters=30, reltol=1e-8, abstol=1e-8,
                    static_reg=1e-9, eq_reg=1e-9, w_clip=1e9)
@@ -124,16 +124,16 @@ def test_float32_stage_solver(rng):
     assert float(np.mean(sol.converged)) >= 0.9
 
 
-def test_pallas_path_matches_default(rng):
-    """use_pallas routes factor/solve through the fused kernel (interpret
-    mode off-TPU); results must match the XLA path."""
+def test_f32_matches_f64_reference(rng):
+    """The f32 solve (the accelerator's precision) tracks the f64 solve
+    of the same problem: the Riccati factor and its substitutions lose
+    no more than f32 roundoff."""
     prob = make_problem(rng, B=4, H=5, NX=6, NU=4, M=6)
     prob32 = tuple(jnp.asarray(v, jnp.float32) for v in prob)
     cfg = SolverConfig(iters=15, reltol=1e-4, abstol=1e-4,
                        static_reg=1e-6, w_clip=1e6)
-    cfg_p = SolverConfig(iters=15, reltol=1e-4, abstol=1e-4,
-                         static_reg=1e-6, w_clip=1e6, use_pallas=True)
-    sol = solve_stage_qp(StageQP(*prob32), cfg)
-    sol_p = solve_stage_qp(StageQP(*prob32), cfg_p)
-    np.testing.assert_allclose(np.asarray(sol_p.u), np.asarray(sol.u),
+    sol = solve_stage_qp(StageQP(*prob), cfg)
+    sol32 = solve_stage_qp(StageQP(*prob32), cfg)
+    assert np.asarray(sol32.converged).all()
+    np.testing.assert_allclose(np.asarray(sol32.u), np.asarray(sol.u),
                                atol=2e-4)

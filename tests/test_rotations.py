@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from apf_quadruped_tpu.ops import rotations as rot
+from apf_quadruped.ops import rotations as rot
 
 
 def test_rpy_roundtrip(rng):

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu.config import EngineConfig
-from apf_quadruped_tpu.models import rbd
-from apf_quadruped_tpu.sim import disturbance, physics, terrain
+from apf_quadruped.config import EngineConfig
+from apf_quadruped.models import rbd
+from apf_quadruped.sim import disturbance, physics, terrain
 
 CFG = EngineConfig()
 DT = jnp.float64

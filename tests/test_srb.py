@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from apf_quadruped_tpu.config import RobotConfig
-from apf_quadruped_tpu.models import srb
-from apf_quadruped_tpu.models.dogbot import nominal_stance
+from apf_quadruped.config import RobotConfig
+from apf_quadruped.models import srb
+from apf_quadruped.models.dogbot import nominal_stance
 
 CFG = RobotConfig()
 
@@ -51,7 +51,7 @@ def test_pure_torque_angular_acceleration():
     _, _, om_d, _ = srb.srb_derivative(
         CFG, rpy, r, jnp.zeros(3), jnp.zeros(3), feet, forces)
     tau = np.cross([0.5, 0, 0], [0, 0, f]) + np.cross([-0.5, 0, 0], [0, 0, -f])
-    from apf_quadruped_tpu.models.dogbot import inertia_matrix
+    from apf_quadruped.models.dogbot import inertia_matrix
     expected = np.linalg.solve(inertia_matrix(CFG), tau)
     np.testing.assert_allclose(om_d, expected, atol=1e-9)
 

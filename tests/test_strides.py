@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu import gait
+from apf_quadruped import gait
 
 
 def _sample_cycle(flag, n=221, cycle=1.0):
@@ -143,9 +143,9 @@ def test_planner_all_swing_knots_converges():
     """Open-loop MPC solve on the pace schedule (flight knots present):
     the Riccati IPM must converge, pin flight-knot forces to ~0, and
     predict ballistic vertical motion across the flight window."""
-    from apf_quadruped_tpu import planner
-    from apf_quadruped_tpu.config import EngineConfig, MpcConfig
-    from apf_quadruped_tpu.models import srb
+    from apf_quadruped import planner
+    from apf_quadruped.config import EngineConfig, MpcConfig
+    from apf_quadruped.models import srb
 
     dtype = jnp.float64
     cfg = EngineConfig(mpc=MpcConfig(horizon=20, dt=0.025,
@@ -187,11 +187,11 @@ def test_pace_closed_loop_smoke():
     ground survive (finite states, no fall) — the full stack (planner
     all-swing knots, WBC zero-stance ticks, ballistic physics, early
     touch-down) under a gait with genuine flight windows."""
-    from apf_quadruped_tpu.config import (EngineConfig, GaitConfig,
+    from apf_quadruped.config import (EngineConfig, GaitConfig,
                                           MpcConfig, SimConfig,
                                           SolverConfig)
-    from apf_quadruped_tpu.runtime import loop
-    from apf_quadruped_tpu.sim import disturbance, terrain
+    from apf_quadruped.runtime import loop
+    from apf_quadruped.sim import disturbance, terrain
 
     dtype = jnp.float32
     cfg = EngineConfig(

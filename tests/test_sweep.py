@@ -8,9 +8,9 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from apf_quadruped_tpu.config import (EngineConfig, GaitConfig, MpcConfig,
+from apf_quadruped.config import (EngineConfig, GaitConfig, MpcConfig,
                                       SimConfig, SolverConfig, WbcConfig)
-from apf_quadruped_tpu.runtime import checkpoint, loop, sweep
+from apf_quadruped.runtime import checkpoint, loop, sweep
 
 # tiny config: these tests check plumbing, not behavior
 pytestmark = pytest.mark.slow  # f64 closed-loop scans (see pytest.ini tiering)

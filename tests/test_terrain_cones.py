@@ -15,12 +15,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu import planner, wbc
-from apf_quadruped_tpu.config import EngineConfig, MpcConfig, SolverConfig
-from apf_quadruped_tpu.models import rbd, srb
-from apf_quadruped_tpu.models.dogbot import nominal_stance
-from apf_quadruped_tpu.models.kinematics import stance_ik
-from apf_quadruped_tpu.sim import terrain
+from apf_quadruped import planner, wbc
+from apf_quadruped.config import EngineConfig, MpcConfig, SolverConfig
+from apf_quadruped.models import rbd, srb
+from apf_quadruped.models.dogbot import nominal_stance
+from apf_quadruped.models.kinematics import stance_ik
+from apf_quadruped.sim import terrain
 
 CFG = EngineConfig(
     mpc=MpcConfig(horizon=10, dt=0.05),

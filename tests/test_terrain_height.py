@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu.config import EngineConfig, SimConfig
-from apf_quadruped_tpu.models import rbd
-from apf_quadruped_tpu.sim import physics, terrain
+from apf_quadruped.config import EngineConfig, SimConfig
+from apf_quadruped.models import rbd
+from apf_quadruped.sim import physics, terrain
 
 DT = jnp.float64
 CFG_S = SimConfig(terrain_res=256)
@@ -162,9 +162,9 @@ def test_walks_up_gentle_ramp():
     terrain (the towr TerrainConstraint role in runtime/loop.py)."""
     import jax
 
-    from apf_quadruped_tpu.config import EngineConfig, SolverConfig, WbcConfig
-    from apf_quadruped_tpu.runtime import loop
-    from apf_quadruped_tpu.sim import disturbance
+    from apf_quadruped.config import EngineConfig, SolverConfig, WbcConfig
+    from apf_quadruped.runtime import loop
+    from apf_quadruped.sim import disturbance
 
     cfg = EngineConfig(
         solver=SolverConfig(iters=20, reltol=1e-4, abstol=1e-3),

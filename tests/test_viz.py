@@ -13,7 +13,7 @@ import pytest
 
 matplotlib = pytest.importorskip("matplotlib")
 
-from apf_quadruped_tpu.runtime import viz  # noqa: E402
+from apf_quadruped.runtime import viz  # noqa: E402
 
 
 def _synthetic_mu(res=64):
@@ -58,11 +58,11 @@ def test_plot_metrics(tmp_path):
     runtime.loop.CycleMetrics."""
     import jax.numpy as jnp
 
-    from apf_quadruped_tpu.config import (EngineConfig, GaitConfig,
+    from apf_quadruped.config import (EngineConfig, GaitConfig,
                                           MpcConfig, SimConfig,
                                           SolverConfig, WbcConfig)
-    from apf_quadruped_tpu.runtime import loop
-    from apf_quadruped_tpu.sim import disturbance, terrain
+    from apf_quadruped.runtime import loop
+    from apf_quadruped.sim import disturbance, terrain
 
     cfg = EngineConfig(
         gait=GaitConfig(trot_cycle=0.1),
@@ -83,7 +83,7 @@ def test_plot_metrics(tmp_path):
 def test_apf_fast_preset():
     """The named goal-reaching preset (CASES.md goal-study recalibration)
     differs from the parity default only in the documented fields."""
-    from apf_quadruped_tpu.config import ApfConfig, apf_fast
+    from apf_quadruped.config import ApfConfig, apf_fast
 
     fast = apf_fast()
     ref = ApfConfig()

@@ -9,11 +9,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from apf_quadruped_tpu import wbc
-from apf_quadruped_tpu.config import EngineConfig, SolverConfig, WbcConfig
-from apf_quadruped_tpu.models import rbd
-from apf_quadruped_tpu.models.dogbot import nominal_stance
-from apf_quadruped_tpu.models.kinematics import stance_ik
+from apf_quadruped import wbc
+from apf_quadruped.config import EngineConfig, SolverConfig, WbcConfig
+from apf_quadruped.models import rbd
+from apf_quadruped.models.dogbot import nominal_stance
+from apf_quadruped.models.kinematics import stance_ik
 
 CFG = EngineConfig(
     solver=SolverConfig(iters=25, reltol=1e-6, abstol=1e-4),

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from apf_quadruped_tpu import planner
-from apf_quadruped_tpu.config import EngineConfig, MpcConfig, SolverConfig
-from apf_quadruped_tpu.models import srb, zoo
+from apf_quadruped import planner
+from apf_quadruped.config import EngineConfig, MpcConfig, SolverConfig
+from apf_quadruped.models import srb, zoo
 
 SOLVER = SolverConfig(iters=25, reltol=1e-6, abstol=1e-4)
 
@@ -82,7 +82,7 @@ def test_zoo_registry():
 
 def test_zoo_full_configs_mass_consistent():
     """Link masses must sum to the SRB mass for every closed-loop robot."""
-    from apf_quadruped_tpu.models import rbd
+    from apf_quadruped.models import rbd
 
     # 2e-3 tolerance: DogBot's own xacro link masses sum to 21.260 while
     # the towr model header says 21.261 (a genuine reference-data quirk)
@@ -93,8 +93,8 @@ def test_zoo_full_configs_mass_consistent():
 
 def test_zoo_stance_reachable():
     """stance_ik must hit the towr nominal stance for every full config."""
-    from apf_quadruped_tpu.models import kinematics
-    from apf_quadruped_tpu.models.dogbot import nominal_stance
+    from apf_quadruped.models import kinematics
+    from apf_quadruped.models.dogbot import nominal_stance
 
     for name in ("anymal", "hyq"):
         cfg = zoo.robot_config_for(zoo.ZOO[name]())
@@ -109,8 +109,8 @@ def test_anymal_walks_closed_loop():
 
     Asserts forward progress toward the goal, no fall, healthy WBC
     convergence at the production solver config."""
-    from apf_quadruped_tpu.runtime import loop
-    from apf_quadruped_tpu.sim import disturbance, terrain
+    from apf_quadruped.runtime import loop
+    from apf_quadruped.sim import disturbance, terrain
 
     cfg = zoo.engine_config_for("anymal")
     st = loop.init(cfg, dtype=jnp.float64)
@@ -129,8 +129,8 @@ def test_hyq_walks_closed_loop():
     """HyQ trots end-to-end like anymal: forward progress, no fall,
     healthy WBC convergence at its tuned engine config (the per-robot
     overrides in zoo.engine_config_for, each one ablated-necessary)."""
-    from apf_quadruped_tpu.runtime import loop
-    from apf_quadruped_tpu.sim import disturbance, terrain
+    from apf_quadruped.runtime import loop
+    from apf_quadruped.sim import disturbance, terrain
 
     cfg = zoo.engine_config_for("hyq")
     st = loop.init(cfg, dtype=jnp.float64)
